@@ -3,12 +3,12 @@
 PERF.md's "~4.3 segments per camera ray" was the Russian-roulette
 EXPECTATION, not a measurement; the roofline in section 4 multiplies it by
 an ops/segment hand count, so its uncertainty propagates straight into the
-"fraction of VPU peak" claim. This tool MEASURES the distribution: it
+"fraction of peak" claim. This tool MEASURES the distribution: it
 re-runs the real integrator bounce loop (integrator._bounce -- same
 physics, draws, RR decisions as a render with the same seed) and counts
 live rays at every depth on-device. mean segments/ray = sum(alive_d)/N.
 
-Runs on CPU or TPU (the distribution is backend-invariant for the uniform
+Runs on CPU or GPU (the distribution is backend-invariant for the uniform
 sampler in distribution; a fixed seed gives a deterministic count here).
 
   python benchmarks/path_length.py [scene] [spp]
@@ -32,12 +32,12 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from cornelis_tpu.camera import generate_rays
-    from cornelis_tpu.integrator import PathState, _bounce
-    from cornelis_tpu.math.vec import RGB, Vec3
-    from cornelis_tpu.rng import STREAM_CAMERA, make_key, make_ray_streams, stream_uniforms
-    from cornelis_tpu.scene.compile import compile_scene
-    from cornelis_tpu.scene.library import BUILTIN_SCENES
+    from cornelis.camera import generate_rays
+    from cornelis.integrator import PathState, _bounce
+    from cornelis.math.vec import RGB, Vec3
+    from cornelis.rng import STREAM_CAMERA, make_key, make_ray_streams, stream_uniforms
+    from cornelis.scene.compile import compile_scene
+    from cornelis.scene.library import BUILTIN_SCENES
 
     scene_name = sys.argv[1] if len(sys.argv) > 1 else "cornell"
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 8

@@ -12,9 +12,9 @@ the process_allgather path), and rank 0 writes the linear image to
 <out.npy>. The parent compares it against a single-process render -- the
 multi-host analog of the reference actually rendering on its TBB pool
 (src/Render.cpp:335-354), not just initializing it. mode "pallas" runs
-the mesh MEGAKERNEL (interpret-lowered via CORNELIS_PALLAS_INTERPRET) so
-the (tiles, samples) collective topology is proven across process
-boundaries on the Pallas path too.
+the mesh MEGAKERNEL (render_chunk_mesh_pallas in interpret mode) so the
+(tiles, samples) collective topology is proven across process boundaries
+on the Pallas path too.
 """
 
 import sys
@@ -44,9 +44,9 @@ assert jax.device_count() == num_procs * devs_per_proc, jax.device_count()
 
 import numpy as np
 
-from cornelis_tpu.options import RenderOptions
-from cornelis_tpu.render import RenderSession, RenderStatus
-from cornelis_tpu.scene.library import cornell_box
+from cornelis.options import RenderOptions
+from cornelis.render import RenderSession, RenderStatus
+from cornelis.scene.library import cornell_box
 
 assert n_tiles * n_samp == num_procs * devs_per_proc
 kw = dict(
@@ -56,18 +56,31 @@ kw = dict(
     spp_chunk=2,
     max_depth=8,
     mesh_shape=(n_tiles, n_samp),
-    backend="pallas" if mode == "pallas" else "xla",
+    backend="xla",
     output=None,
 )
-if mode == "pallas":
-    # Smaller frame + one chunk: interpret-mode megakernel execution on an
-    # oversubscribed CPU must keep rank skew under gloo's 30 s context-
-    # init deadline. The pre-render sync below aligns the ranks first.
-    kw.update(width=32, height=32, samples_aa=2, max_depth=6)
 if mode in ("pallas", "plain4"):
     from jax.experimental import multihost_utils
 
     multihost_utils.sync_global_devices("cornelis-mp-test-start")
+if mode == "pallas":
+    # Smaller frame + one chunk: interpret-mode megakernel execution on an
+    # oversubscribed CPU must keep rank skew under gloo's 30 s context-
+    # init deadline. The sync above aligns the ranks first.
+    from cornelis.parallel import make_mesh, render_chunk_mesh_pallas
+    from cornelis.rng import make_key
+    from cornelis.scene.compile import compile_scene
+
+    img = render_chunk_mesh_pallas(
+        compile_scene(cornell_box()), make_key(), np.uint32(0),
+        mesh=make_mesh((n_tiles, n_samp)), width=32, height=32, spp_chunk=2,
+        spp_total=2, max_depth=6, interpret=True,
+    )
+    img = np.asarray(multihost_utils.process_allgather(img, tiled=True)) / 2
+    if process_id == 0:
+        np.save(out_path, img)
+    print(f"[rank {process_id}] ok mean={float(img.mean()):.6f}", flush=True)
+    sys.exit(0)
 if mode == "budget":
     # Exercises the rank-agreed time-budget break and the rank-0-only
     # checkpoint write (divergent local clocks must not deadlock the

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.camera import (
+from cornelis.camera import (
     default_camera,
     generate_rays,
     horizontal_fov_35mm,

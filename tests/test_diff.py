@@ -16,10 +16,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.diff import InverseRenderer, apply_params, extract_params, render_diff
-from cornelis_tpu.math.vec import Vec3
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.library import cornell_box, sphere_on_plane
+from cornelis.diff import InverseRenderer, apply_params, extract_params, render_diff
+from cornelis.math.vec import Vec3
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.library import cornell_box, sphere_on_plane
 
 W = H = 24
 SPP = 24
@@ -222,12 +222,12 @@ class TestNeeGradients:
 class TestGatherVJPEquivalence:
     def test_matmul_transpose_gather_matches_scatter_gather_grads(self, scene):
         # materials._take_rows swaps jnp.take's scatter-add transpose for
-        # a one-hot matmul reduction (the round-5 diff-backward hot fix:
-        # 27x -> 2.5x backward/forward on the v5e). The estimator is
+        # a one-hot matmul reduction (5.7x faster diff step on the H100,
+        # PERF.md). The estimator is
         # IDENTICAL: on common draws, gradients through the custom rule
         # must match gradients through plain jnp.take to float-sum
         # reordering tolerance.
-        import cornelis_tpu.materials as materials
+        import cornelis.materials as materials
 
         key = jax.random.key(11)
         g_custom = _grad_wrt_floats(scene, key)
@@ -346,7 +346,7 @@ class TestLossWeight:
         # loss floor from the clipped light disc and diverged). Masked
         # pixels must contribute NOTHING: corrupting them must not change
         # the loss.
-        from cornelis_tpu.diff.inverse import extract_params, make_loss
+        from cornelis.diff.inverse import extract_params, make_loss
 
         scene = compile_scene(sphere_on_plane())
         W = H = 16

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from cornelis_tpu.film import Film, load_image_linear, mse
-from cornelis_tpu.utils.png import encode_png, read_png, write_png
+from cornelis.film import Film, load_image_linear, mse
+from cornelis.utils.png import encode_png, read_png, write_png
 
 
 class TestPng:

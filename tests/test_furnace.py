@@ -28,12 +28,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from cornelis_tpu.integrator import render_chunk
-from cornelis_tpu.materials import MaterialParams, layered_sample
-from cornelis_tpu.math.vec import RGB, Vec3, construct_basis, dot
-from cornelis_tpu.rng import make_key
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.integrator import render_chunk
+from cornelis.materials import MaterialParams, layered_sample
+from cornelis.math.vec import RGB, Vec3, construct_basis, dot
+from cornelis.rng import make_key
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     MaterialDescription,
     PerspectiveCameraDescription,
     PlaneDescription,

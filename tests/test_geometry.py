@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.geometry import (
+from cornelis.geometry import (
     intersect_scene,
     plane_candidate,
     sphere_candidate,
 )
-from cornelis_tpu.math.vec import Vec3, vec3
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.math.vec import Vec3, vec3
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     PlaneDescription,
     SceneDescription,
     SphereDescription,
@@ -182,15 +182,15 @@ class TestSelfIntersectionGuard:
     Float32 hit positions round by ulp(coordinate / ray length); once that
     exceeds the reference's absolute 1e-4 bounce offset (coordinates or ray
     lengths ~1000+), a bounced ray can start BEHIND its own surface and the
-    closest hit finds the same surface at t ~ 0. Measured on TPU (round 3):
+    closest hit finds the same surface at t ~ 0. Measured in round 3:
     27% of Cornell back-wall light-cone rays self-intersected, losing ~15%
     of the region's radiance vs the reference renderer and carving
     iso-rounding rings into the wall. These tests pin the guard.
     """
 
     def test_overshot_origin_does_not_self_hit_plane(self):
-        from cornelis_tpu.geometry import plane_candidate
-        from cornelis_tpu.math.vec import vec3
+        from cornelis.geometry import plane_candidate
+        from cornelis.math.vec import vec3
 
         # The measured failure shape: a bounce origin that f32 rounding
         # placed 2e-5 BEHIND the Cornell back wall (plane z=275, normal -z),
@@ -198,7 +198,7 @@ class TestSelfIntersectionGuard:
         # it just left at t ~ 2.6e-5.
         import jax.numpy as jnp
 
-        from cornelis_tpu.math.vec import Vec3
+        from cornelis.math.vec import Vec3
 
         o = Vec3(jnp.array([-179.0]), jnp.array([509.7]), jnp.array([275.00002]))
         d = Vec3(jnp.array([0.6095]), jnp.array([0.0808]), jnp.array([-0.7886]))
@@ -210,8 +210,8 @@ class TestSelfIntersectionGuard:
     def test_distant_legitimate_hit_still_accepted(self):
         import jax.numpy as jnp
 
-        from cornelis_tpu.geometry import min_hit_t, plane_candidate
-        from cornelis_tpu.math.vec import Vec3, vec3
+        from cornelis.geometry import min_hit_t, plane_candidate
+        from cornelis.math.vec import Vec3, vec3
 
         o = Vec3(jnp.array([0.0]), jnp.array([275.0]), jnp.array([-1100.0]))
         d = Vec3(jnp.array([0.0]), jnp.array([0.0]), jnp.array([1.0]))
@@ -226,8 +226,8 @@ class TestSelfIntersectionGuard:
     def test_sphere_near_root_rejected_far_root_kept(self):
         import jax.numpy as jnp
 
-        from cornelis_tpu.geometry import sphere_candidate
-        from cornelis_tpu.math.vec import Vec3, vec3
+        from cornelis.geometry import sphere_candidate
+        from cornelis.math.vec import Vec3, vec3
 
         # Origin a hair outside a unit sphere pointing inward: the entry
         # root sits at ~1e-7 (below the guard), the exit root at ~2 -- the

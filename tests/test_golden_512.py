@@ -1,7 +1,7 @@
 """Matched-resolution golden check on the COMMITTED artifacts.
 
 tools/matched_golden.py renders Cornell at the reference's own 512x512
-(16384 spp, seed 19791102) on TPU and commits the result as
+(16384 spp, seed 19791102) on an accelerator and commits the result as
 tests/golden/ours_cornell_512.png next to the reference renderer's output.
 This test re-verifies the committed pair on every run (cheap: two PNG
 decodes), so the repository's stated golden agreement (GOLDEN_512.md) can
@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.math.color import srgb_decode
-from cornelis_tpu.utils.png import read_png
+from cornelis.math.color import srgb_decode
+from cornelis.utils.png import read_png
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 REF = os.path.join(GOLDEN_DIR, "reference_cornell_512.png")

@@ -31,12 +31,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.integrator import render_chunk
-from cornelis_tpu.math.color import srgb_decode
-from cornelis_tpu.rng import make_key
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.library import cornell_box
-from cornelis_tpu.utils.png import read_png
+from cornelis.integrator import render_chunk
+from cornelis.math.color import srgb_decode
+from cornelis.rng import make_key
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.library import cornell_box
+from cornelis.utils.png import read_png
 
 GOLDEN = os.path.join(
     os.path.dirname(__file__), "golden", "reference_cornell_512.png"

@@ -7,21 +7,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.integrator import (
+from cornelis.integrator import (
     render_chunk,
     russian_roulette_probability,
     trace_paths,
 )
-from cornelis_tpu.math.vec import RGB, Vec3
-from cornelis_tpu.rng import make_key, ray_keys
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.math.vec import RGB, Vec3
+from cornelis.rng import make_key, ray_keys
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     MaterialDescription,
     PerspectiveCameraDescription,
     SceneDescription,
     SphereDescription,
 )
-from cornelis_tpu.scene.library import sphere_on_plane
+from cornelis.scene.library import sphere_on_plane
 
 
 def _emissive_sphere_scene():
@@ -81,7 +81,7 @@ class TestTracePaths:
         n = 128
         o = Vec3(jnp.zeros(n), jnp.full((n,), 2.0), jnp.full((n,), -8.0))
         d = Vec3(jnp.zeros(n), jnp.full((n,), -0.12), jnp.ones(n))
-        from cornelis_tpu.math.vec import normalize
+        from cornelis.math.vec import normalize
 
         d = normalize(d)
         keys = ray_keys(make_key(3), jnp.arange(n, dtype=jnp.uint32))
@@ -138,3 +138,56 @@ class TestRenderChunk:
         img = self._chunk(scene, 0, 4)
         center = img[self.H // 2, self.W // 2] / 4
         assert np.allclose(center, 15.0, atol=1e-3)
+
+
+def check_depth_rules(rule: str) -> None:
+    """The depth-guarded integrator rules under a jitted lax.fori_loop with
+    an int32 bounce counter -- the loop form of the diff path
+    (trace_paths(unroll_bounces=True)). Shared by the CPU test below and
+    its `gpu`-marked twin in test_gpu.py."""
+    import jax
+
+    from cornelis.diff import render_diff
+    from cornelis.integrator import (
+        RR_BASE,
+        nee_clamp_at_depth,
+        russian_roulette_probability,
+    )
+
+    depths = 6
+    if rule == "nee_direct_emitter":
+        # Depth 0 sees the emitter: MIS weight 1, no clamp -- the pixel is
+        # exactly L_e (a depth test taking the depth > 0 branch at depth 0
+        # would scale it by the MIS weight).
+        img = render_diff(_emissive_sphere_scene(), make_key(1), width=8,
+                          height=8, spp=2, max_depth=4, mode="nee")
+        np.testing.assert_allclose(np.asarray(img)[4, 4], 15.0, rtol=1e-5)
+        return
+
+    thru = RGB(jnp.full(2, 0.1), jnp.full(2, 0.1), jnp.full(2, 0.1))
+
+    def body(i, carry):
+        depth, out = carry
+        if rule == "rr_schedule":
+            v = russian_roulette_probability(thru, depth)[0]
+        else:
+            v = nee_clamp_at_depth(2.0, depth)
+        return depth + 1, out.at[i].set(v)
+
+    _, got = jax.jit(lambda: jax.lax.fori_loop(
+        0, depths, body, (jnp.int32(0), jnp.zeros(depths, jnp.float32))
+    ))()
+    d = np.arange(depths)
+    if rule == "rr_schedule":
+        # 0.99 while young (depth < 3), then 0.55 * clip(|T|^2 = 0.03).
+        want = np.where(d < 3, 0.99, RR_BASE * (0.05 / RR_BASE))
+    else:
+        want = 2.0 * (1.0 / RR_BASE) ** np.maximum(d - 3, 0)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "rule", ["rr_schedule", "clamp_schedule", "nee_direct_emitter"]
+)
+def test_depth_rules_in_fori_loop(rule):
+    check_depth_rules(rule)

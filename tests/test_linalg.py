@@ -12,10 +12,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cornelis_tpu.math import linalg as lg
-from cornelis_tpu.rng import make_key
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.math import linalg as lg
+from cornelis.rng import make_key
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     SceneDescription,
     SDFDescription,
     SphereDescription,
@@ -112,8 +112,8 @@ class TestObjectTransforms:
         # so the hit is at t = 5.5 - sqrt(2), with world normal
         # R(45) @ (0, 1, 0) = (-sqrt(1/2), sqrt(1/2), 0). The unrotated box
         # on the same ray is hit at t = 4 (face x = -1).
-        from cornelis_tpu.geometry import SDF_KIND_BOX, sdf_candidate
-        from cornelis_tpu.math.vec import Vec3
+        from cornelis.geometry import SDF_KIND_BOX, sdf_candidate
+        from cornelis.math.vec import Vec3
 
         o = Vec3(*(jnp.asarray([v]) for v in (-5.0, 0.5, 0.0)))
         d = Vec3(*(jnp.asarray([v]) for v in (1.0, 0.0, 0.0)))
@@ -135,8 +135,8 @@ class TestObjectTransforms:
 
     def test_scaled_sdf_sphere(self):
         # Scale-2 unit sphere == radius-2 sphere: same first hit.
-        from cornelis_tpu.geometry import SDF_KIND_SPHERE, sdf_candidate
-        from cornelis_tpu.math.vec import Vec3
+        from cornelis.geometry import SDF_KIND_SPHERE, sdf_candidate
+        from cornelis.math.vec import Vec3
 
         o = Vec3(*(jnp.asarray([v]) for v in (0.0, 0.0, -10.0)))
         d = Vec3(*(jnp.asarray([v]) for v in (0.0, 0.0, 1.0)))
@@ -149,8 +149,8 @@ class TestObjectTransforms:
 
     def test_transformed_scene_renders(self):
         # End-to-end: an oriented box through compile_scene -> render_chunk.
-        from cornelis_tpu.integrator import render_chunk
-        from cornelis_tpu.scene.description import (
+        from cornelis.integrator import render_chunk
+        from cornelis.scene.description import (
             MaterialDescription,
             PerspectiveCameraDescription,
         )

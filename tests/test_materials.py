@@ -12,9 +12,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu import materials as M
-from cornelis_tpu.math.vec import PI, Vec3, construct_basis, dot, mag2, normalize, vec3
-from cornelis_tpu.rng import hemisphere_pdf, hemisphere_sample_basis
+from cornelis import materials as M
+from cornelis.math.vec import PI, Vec3, construct_basis, dot, mag2, normalize, vec3
+from cornelis.rng import hemisphere_pdf, hemisphere_sample_basis
 
 
 def fval(x):
@@ -219,3 +219,28 @@ class TestSamplingConsistency:
         # The replicated factor-2 pdf quirk brightens glossy contributions.
         est_true, est_ref, _, _ = self._estimates(0.2)
         assert est_ref.mean() > est_true.mean() * 1.02
+
+
+class TestGatherVJP:
+    """materials._take_rows: forward is jnp.take; its custom backward (a
+    one-hot matmul at full f32 precision) must equal the scatter-add
+    transpose it replaces -- per row, the sum of that row's cotangents."""
+
+    @pytest.mark.parametrize("pattern", ["random", "one_row", "all_rows"])
+    def test_grad_is_per_row_cotangent_sum(self, pattern):
+        rng = np.random.default_rng(3)
+        m, n = 7, 4096
+        ids = {
+            "random": rng.integers(0, m, n),
+            "one_row": np.full(n, 2),
+            "all_rows": np.arange(n) % m,
+        }[pattern].astype(np.int32)
+        table = jnp.asarray(rng.normal(size=m).astype(np.float32))
+        w = jnp.asarray(rng.normal(size=n).astype(np.float32))
+
+        np.testing.assert_array_equal(
+            np.asarray(M._take_rows(table, ids)), np.asarray(table)[ids]
+        )
+        grad = jax.grad(lambda t: jnp.sum(w * M._take_rows(t, ids)))(table)
+        want = np.bincount(ids, weights=np.asarray(w, np.float64), minlength=m)
+        np.testing.assert_allclose(np.asarray(grad), want, rtol=1e-5, atol=1e-4)

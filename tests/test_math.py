@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.math import color, tiles
-from cornelis_tpu.math.vec import (
+from cornelis.math import color, tiles
+from cornelis.math.vec import (
     Basis,
     Vec3,
     construct_basis,

@@ -42,8 +42,6 @@ def _launch(tmp_path, out, mode="plain", num_procs=2, devs_per_proc=2,
     )
     env.pop("JAX_PLATFORMS", None)  # child pins cpu via jax.config
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    if mode == "pallas":
-        env["CORNELIS_PALLAS_INTERPRET"] = "1"
 
     procs = [
         subprocess.Popen(
@@ -80,9 +78,9 @@ def test_two_process_render_matches_single_process(tmp_path):
 
     # Single-process reference image, same options, in-process (the suite's
     # own 8-device virtual mesh is irrelevant here: mesh_shape None).
-    from cornelis_tpu.options import RenderOptions
-    from cornelis_tpu.render import RenderSession
-    from cornelis_tpu.scene.library import cornell_box
+    from cornelis.options import RenderOptions
+    from cornelis.render import RenderSession
+    from cornelis.scene.library import cornell_box
 
     opts = RenderOptions(
         width=64,
@@ -111,20 +109,16 @@ def test_two_process_time_budget_and_checkpoint_do_not_deadlock(tmp_path):
 
 
 
-def _single_process_image(monkeypatch, pallas, **kw):
-    from cornelis_tpu.options import RenderOptions
-    from cornelis_tpu.render import RenderSession
-    from cornelis_tpu.scene.library import cornell_box
+def _single_process_image(**kw):
+    from cornelis.options import RenderOptions
+    from cornelis.render import RenderSession
+    from cornelis.scene.library import cornell_box
 
-    if pallas:
-        monkeypatch.setenv("CORNELIS_PALLAS_INTERPRET", "1")
-    opts = RenderOptions(
-        backend="pallas" if pallas else "xla", output=None, **kw
-    )
+    opts = RenderOptions(backend="xla", output=None, **kw)
     return RenderSession(cornell_box(), opts).render().image
 
 
-def test_four_process_samples_psum_crosses_ranks(tmp_path, monkeypatch):
+def test_four_process_samples_psum_crosses_ranks(tmp_path):
     """4 ranks x 1 virtual device on a (2, 2) tiles x samples mesh: with
     one device per process, the samples-axis psum (and the tile allgather)
     both CROSS process boundaries -- the full (tiles, samples) collective
@@ -135,13 +129,12 @@ def test_four_process_samples_psum_crosses_ranks(tmp_path, monkeypatch):
             mesh=(2, 2))
     multi = np.load(out)
     single = _single_process_image(
-        monkeypatch, pallas=False,
         width=64, height=64, samples_aa=4, spp_chunk=2, max_depth=8,
     )
     np.testing.assert_allclose(multi, single, rtol=1e-5, atol=1e-6)
 
 
-def test_two_process_pallas_mesh_samples_psum(tmp_path, monkeypatch):
+def test_two_process_pallas_mesh_samples_psum(tmp_path):
     """The MESH MEGAKERNEL (interpret-lowered) across process boundaries:
     2 ranks x 1 device on a (1, 2) mesh puts the samples-axis psum INSIDE
     shard_map across the two processes, with the megakernel as each
@@ -154,8 +147,13 @@ def test_two_process_pallas_mesh_samples_psum(tmp_path, monkeypatch):
     _launch(tmp_path, out, mode="pallas", num_procs=2, devs_per_proc=1,
             mesh=(1, 2))
     multi = np.load(out)
-    single = _single_process_image(
-        monkeypatch, pallas=True,
-        width=32, height=32, samples_aa=2, spp_chunk=2, max_depth=6,
-    )
+    from cornelis.ops.pallas_integrator import render_chunk_pallas
+    from cornelis.rng import make_key
+    from cornelis.scene.compile import compile_scene
+    from cornelis.scene.library import cornell_box
+
+    single = np.asarray(render_chunk_pallas(
+        compile_scene(cornell_box()), make_key(), np.uint32(0), width=32,
+        height=32, spp_chunk=2, spp_total=2, max_depth=6, interpret=True,
+    )) / 2
     np.testing.assert_allclose(multi, single, rtol=1e-5, atol=1e-6)

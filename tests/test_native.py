@@ -9,10 +9,10 @@ Skips cleanly when no compiler is available.
 import numpy as np
 import pytest
 
-from cornelis_tpu import native
-from cornelis_tpu.film import Film
-from cornelis_tpu.math import color as pycolor
-from cornelis_tpu.utils import png as pypng
+from cornelis import native
+from cornelis.film import Film
+from cornelis.math import color as pycolor
+from cornelis.utils import png as pypng
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable (no g++/zlib)"

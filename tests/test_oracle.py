@@ -1,4 +1,4 @@
-"""Golden-oracle tests: compare cornelis_tpu's batched implementations
+"""Golden-oracle tests: compare cornelis's batched implementations
 elementwise against dumps produced by the *actual reference code*
 (tools/oracle/oracle_main.cpp links the reference sources and evaluates its
 camera / basis / sampling / BRDF / intersection functions on fixed random
@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu import materials as M
-from cornelis_tpu.camera import generate_rays, look_at
-from cornelis_tpu.geometry import plane_candidate, sphere_candidate
-from cornelis_tpu.math.vec import Vec3, construct_basis
-from cornelis_tpu.rng import hemisphere_sample, hemisphere_sample_basis
+from cornelis import materials as M
+from cornelis.camera import generate_rays, look_at
+from cornelis.geometry import plane_candidate, sphere_candidate
+from cornelis.math.vec import Vec3, construct_basis
+from cornelis.rng import hemisphere_sample, hemisphere_sample_basis
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden", "oracle")
 

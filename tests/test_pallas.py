@@ -1,8 +1,7 @@
 """Pallas megakernel tests (runnable on CPU).
 
-Two layers of coverage for the TPU-default backend that CI otherwise never
-exercises (the suite forces jax_platforms=cpu, where backend="auto" skips
-Pallas):
+Coverage for the GPU's default backend, which the CPU suite otherwise never
+exercises (on the CPU, backend="auto" renders on the XLA wavefront):
 
   * ops/threefry.py against the Random123 published known-answer vectors
     for Threefry-2x32 (20 rounds) AND cross-validated against JAX's own
@@ -20,11 +19,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.integrator import render_chunk
-from cornelis_tpu.ops.threefry import pair_uniforms, threefry2x32, to_unit_float
-from cornelis_tpu.rng import make_key
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.library import cornell_box
+from cornelis.integrator import render_chunk
+from cornelis.ops.threefry import pair_uniforms, threefry2x32, to_unit_float
+from cornelis.rng import make_key
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.library import cornell_box
 
 
 def _tf(k0, k1, c0, c1):
@@ -108,7 +107,7 @@ class TestMegakernelInterpret:
 
     @pytest.fixture(scope="class")
     def images(self):
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key()
@@ -159,7 +158,7 @@ class TestMegakernelInterpret:
         assert np.all(np.abs(pa - xa) < 6 * per_block_sigma + 0.02)
 
     def test_deterministic(self):
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key(5)
@@ -178,8 +177,8 @@ class TestMegakernelInterpret:
         # SDF primitives in the megakernel (sphere-traced in-kernel via the
         # shared geometry.sdf_candidate): compare against the XLA wavefront
         # on the sdf-gallery scene.
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
-        from cornelis_tpu.scene.library import sdf_gallery
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.scene.library import sdf_gallery
 
         scene = compile_scene(sdf_gallery())
         assert scene.num_sdfs > 0
@@ -201,7 +200,7 @@ class TestMegakernelInterpret:
         # In sobol mode both backends run sampling.py's exact pipeline with
         # identical (pixel_seed, sample, stream) keys, so the rendered
         # images agree to float tolerance (only op-fusion order differs).
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key(9)
@@ -220,7 +219,7 @@ class TestMegakernelInterpret:
         # Chunk (0..4) + chunk (4..8) must equal one chunk (0..8): the same
         # accumulation contract as the XLA path (sums over disjoint sample
         # ranges add).
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key(5)
@@ -247,7 +246,7 @@ class TestMegakernelNEE:
     def test_nee_sobol_matches_xla_bitwise_draws(self):
         # NEE + MIS in-kernel, sobol draws bit-shared with the XLA path:
         # interpret-mode images agree to float tolerance.
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key(4)
@@ -268,7 +267,7 @@ class TestMegakernelNEE:
     def test_nee_uniform_distribution(self):
         # Different RNG bits (threefry vs jax.random), same estimator:
         # distributional agreement.
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
         scene = compile_scene(cornell_box())
         key = make_key(6)
@@ -302,15 +301,9 @@ class TestMegakernelPlaneLights:
         sys.path.insert(0, os.path.dirname(__file__))
         from test_nee import _panel_scene
 
-        from cornelis_tpu.ops.pallas_integrator import (
-            host_scene_from_description,
-            register_host_scene,
-            render_chunk_pallas,
-        )
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
 
-        descr = _panel_scene(with_sphere_light=True)
-        scene = compile_scene(descr)
-        register_host_scene(scene, host_scene_from_description(descr))
+        scene = compile_scene(_panel_scene(with_sphere_light=True))
         key = make_key(3)
         kw = dict(width=24, height=24, spp_chunk=16, spp_total=16,
                   max_depth=6, sampler="sobol", mode="nee")

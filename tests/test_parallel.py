@@ -12,11 +12,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu.integrator import render_chunk
-from cornelis_tpu.parallel import make_mesh, render_chunk_mesh
-from cornelis_tpu.rng import make_key
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.library import cornell_box
+from cornelis.integrator import render_chunk
+from cornelis.parallel import make_mesh, render_chunk_mesh
+from cornelis.rng import make_key
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.library import cornell_box
 
 W = H = 32
 SPP = 8
@@ -75,8 +75,8 @@ def test_output_is_row_sharded(scene):
 
 
 def test_session_mesh_path_matches_single_device(tmp_path):
-    from cornelis_tpu.options import RenderOptions
-    from cornelis_tpu.render import RenderSession
+    from cornelis.options import RenderOptions
+    from cornelis.render import RenderSession
 
     common = dict(width=32, height=32, samples_aa=16, spp_chunk=8, seed=11, output=None)
     single = RenderSession(cornell_box(), RenderOptions(**common)).render()
@@ -103,7 +103,7 @@ def test_tile_sharding_invariance(scene, reference_image, tile_size):
 
 
 def test_tile_major_order_is_permutation():
-    from cornelis_tpu.math.tiles import tile_major_order
+    from cornelis.math.tiles import tile_major_order
 
     for w, h, t in ((32, 32, 8), (20, 12, 8), (7, 5, 3)):
         perm = tile_major_order(w, h, t, t)
@@ -118,8 +118,8 @@ class TestMeshPallas:
     """The megakernel under shard_map (interpret mode on the CPU mesh)."""
 
     def test_matches_single_device_megakernel(self, scene):
-        from cornelis_tpu.ops.pallas_integrator import render_chunk_pallas
-        from cornelis_tpu.parallel import render_chunk_mesh_pallas
+        from cornelis.ops.pallas_integrator import render_chunk_pallas
+        from cornelis.parallel import render_chunk_mesh_pallas
 
         single = np.asarray(
             render_chunk_pallas(
@@ -144,7 +144,7 @@ class TestMeshPallas:
             np.testing.assert_allclose(img, single, atol=atol, rtol=1e-5)
 
     def test_sobol_mesh_megakernel(self, scene):
-        from cornelis_tpu.parallel import render_chunk_mesh_pallas
+        from cornelis.parallel import render_chunk_mesh_pallas
 
         mesh = make_mesh((4, 2))
         img = np.asarray(

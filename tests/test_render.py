@@ -4,14 +4,14 @@ checkpoint/resume, options validation (Render.hpp:10-49 semantics)."""
 import numpy as np
 import pytest
 
-from cornelis_tpu.options import RenderOptions
-from cornelis_tpu.render import (
+from cornelis.options import RenderOptions
+from cornelis.render import (
     RenderCommand,
     RenderSession,
     RenderStatus,
     render_scene,
 )
-from cornelis_tpu.scene.library import sphere_on_plane
+from cornelis.scene.library import sphere_on_plane
 
 
 def _opts(**kw):
@@ -145,3 +145,12 @@ class TestTimeBudget:
     def test_negative_budget_rejected(self):
         with pytest.raises(ValueError):
             _opts(time_budget_s=-1.0).validate()
+
+
+@pytest.mark.parametrize("devices", [1, 4])
+def test_auto_chunk_scales_with_mesh_devices(devices):
+    from cornelis.options import CHUNK_RAYS
+
+    opts = RenderOptions(width=64, height=64, samples_aa=1 << 20)
+    want = CHUNK_RAYS["cpu"] * devices // (64 * 64)
+    assert opts.resolved_spp_chunk(devices=devices) == want

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cornelis_tpu import rng
-from cornelis_tpu.math.vec import PI, construct_basis, dot, mag2, normalize, vec3
+from cornelis import rng
+from cornelis.math.vec import PI, construct_basis, dot, mag2, normalize, vec3
 
 
 class TestKeys:

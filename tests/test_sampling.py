@@ -16,8 +16,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cornelis_tpu import sampling
-from cornelis_tpu.rng import make_key, make_ray_streams, stream_uniforms
+from cornelis import sampling
+from cornelis.rng import make_key, make_ray_streams, stream_uniforms
 
 
 def _sobol_points(n, seed_x=None, seed_y=None):
@@ -164,7 +164,7 @@ class TestStreamUniforms:
         assert abs(c) < 0.2
 
     def test_uniform_mode_unchanged(self):
-        from cornelis_tpu.rng import pixel_sample_keys, ray_uniforms
+        from cornelis.rng import pixel_sample_keys, ray_uniforms
 
         px = jnp.array([3, 3], jnp.uint32)
         si = jnp.array([0, 1], jnp.uint32)
@@ -178,9 +178,9 @@ class TestStreamUniforms:
 
 class TestEndToEnd:
     def test_sobol_render_matches_uniform_mean(self):
-        from cornelis_tpu.integrator import render_chunk
-        from cornelis_tpu.scene.compile import compile_scene
-        from cornelis_tpu.scene.library import sphere_on_plane
+        from cornelis.integrator import render_chunk
+        from cornelis.scene.compile import compile_scene
+        from cornelis.scene.library import sphere_on_plane
 
         scene = compile_scene(sphere_on_plane())
         spp = 512

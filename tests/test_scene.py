@@ -4,15 +4,15 @@ and tests/test_Scene.cpp)."""
 import numpy as np
 import pytest
 
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     MaterialDescription,
     PerspectiveCameraDescription,
     PlaneDescription,
     SceneDescription,
     SphereDescription,
 )
-from cornelis_tpu.scene.library import cornell_box, sphere_on_plane
+from cornelis.scene.library import cornell_box, sphere_on_plane
 
 
 class TestDescription:
@@ -112,7 +112,7 @@ class TestHostTableConsistency:
     holds bitwise by construction on any platform."""
 
     def test_host_tables_match_compiled_scene_exactly(self):
-        from cornelis_tpu.ops.pallas_integrator import (
+        from cornelis.ops.pallas_integrator import (
             _HOST_SCENE_MEMO,
             host_scene_from_description,
             scene_to_host,
@@ -128,7 +128,7 @@ class TestHostTableConsistency:
     def test_look_at_host_matches_traced_look_at(self):
         import numpy as np
 
-        from cornelis_tpu.camera import look_at, look_at_host
+        from cornelis.camera import look_at, look_at_host
 
         h = look_at_host((50.0, 40.8, 155.0), (50.0, 40.8, 0.0), 0.5, 1.011)
         d = look_at((50.0, 40.8, 155.0), (50.0, 40.8, 0.0), 0.5, 1.011)
@@ -139,12 +139,12 @@ class TestHostTableConsistency:
 
 def test_sphere_grid_scales():
     """Procedural stress scene (VERDICT r2 #6): deterministic, 64+1 spheres."""
-    arrays = compile_scene(__import__("cornelis_tpu.scene.library", fromlist=["sphere_grid"]).sphere_grid(64))
+    arrays = compile_scene(__import__("cornelis.scene.library", fromlist=["sphere_grid"]).sphere_grid(64))
     assert arrays.num_spheres == 65
     assert arrays.num_planes == 1
     assert arrays.num_materials >= 9
     # Deterministic: two builds give identical tables.
-    again = compile_scene(__import__("cornelis_tpu.scene.library", fromlist=["sphere_grid"]).sphere_grid(64))
+    again = compile_scene(__import__("cornelis.scene.library", fromlist=["sphere_grid"]).sphere_grid(64))
     np.testing.assert_array_equal(
         np.asarray(arrays.sphere_center.x), np.asarray(again.sphere_center.x)
     )

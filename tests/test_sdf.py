@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from cornelis_tpu.geometry import (
+from cornelis.geometry import (
     SDF_KIND_BOX,
     SDF_KIND_SPHERE,
     SDF_KIND_TORUS,
@@ -20,14 +20,14 @@ from cornelis_tpu.geometry import (
     sdf_distance,
     sphere_candidate,
 )
-from cornelis_tpu.math.vec import Vec3
-from cornelis_tpu.scene.compile import compile_scene
-from cornelis_tpu.scene.description import (
+from cornelis.math.vec import Vec3
+from cornelis.scene.compile import compile_scene
+from cornelis.scene.description import (
     SceneDescription,
     SDFDescription,
     SphereDescription,
 )
-from cornelis_tpu.scene.library import sdf_gallery
+from cornelis.scene.library import sdf_gallery
 
 
 def _vec(*rows):
@@ -120,7 +120,7 @@ class TestSceneIntegration:
         # from -z must report the sphere; rays offset to miss the sphere
         # must report the box.
         scene = SceneDescription()
-        m = scene.add_material(__import__("cornelis_tpu").MaterialDescription())
+        m = scene.add_material(__import__("cornelis").MaterialDescription())
         scene.add_sphere(SphereDescription(center=(0.0, 0.0, 0.0), radius=1.0, material=m))
         scene.add_sdf(
             SDFDescription(kind="box", center=(0.0, 0.0, 4.0), params=(3.0, 3.0, 1.0, 0.0))
@@ -142,8 +142,8 @@ class TestSceneIntegration:
         assert arrays.num_sdfs == 3
 
     def test_render_smoke(self):
-        from cornelis_tpu.integrator import render_chunk
-        from cornelis_tpu.rng import make_key
+        from cornelis.integrator import render_chunk
+        from cornelis.rng import make_key
 
         arrays = compile_scene(sdf_gallery())
         img = np.asarray(

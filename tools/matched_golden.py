@@ -12,7 +12,7 @@ Outputs (committed):
   * tests/golden/ours_cornell_512.png  -- our render, byte-comparable form
   * GOLDEN_512.md                      -- per-region deltas + summary
 
-Run on a TPU host:  python tools/matched_golden.py [--spp 16384]
+Run on the GPU:  python tools/matched_golden.py [--spp 16384]
 (tests/test_golden_image.py keeps the cheap 128x128 CPU-CI comparison;
 tests/test_golden_512.py re-checks the committed artifacts on every run.)
 """
@@ -45,11 +45,11 @@ def main() -> None:
     import jax.numpy as jnp
     import numpy as np
 
-    from cornelis_tpu.math.color import srgb_decode
-    from cornelis_tpu.options import RenderOptions
-    from cornelis_tpu.render import RenderSession
-    from cornelis_tpu.scene.library import cornell_box
-    from cornelis_tpu.utils.png import read_png
+    from cornelis.math.color import srgb_decode
+    from cornelis.options import RenderOptions
+    from cornelis.render import RenderSession
+    from cornelis.scene.library import cornell_box
+    from cornelis.utils.png import read_png
 
     t0 = time.time()
     opts = RenderOptions(

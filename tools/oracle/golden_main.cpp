@@ -7,7 +7,7 @@
 // CPU output within Monte-Carlo noise.
 //
 // The scene below is the reference's own cornellBox() scene *data*
-// (src/cornelis.cpp:6-74) -- the same data cornelis_tpu/scene/library.py
+// (src/cornelis.cpp:6-74) -- the same data cornelis/scene/library.py
 // builds -- fed through the reference's builder API. samplesAA comes from
 // argv so the golden's noise floor is a knob (the shipped main hardcodes
 // 4096, src/cornelis.cpp:77).

@@ -4,7 +4,7 @@
 // /root/reference) and evaluates its camera / basis / sampling / BRDF /
 // intersection functions on fixed pseudo-random inputs, dumping raw float32
 // vectors. The Python test suite (tests/test_oracle.py) replays the same
-// inputs through cornelis_tpu and compares elementwise -- pinning every
+// inputs through cornelis and compares elementwise -- pinning every
 // numeric quirk of the reference (camera skew, GTR normalizations, NaN->0
 // max semantics, pdf fallbacks, closest-hit rules).
 //
